@@ -87,7 +87,7 @@ class EPPRFrame(CR3BPFrame, BodyRegistry):
     def CalcFrameData(self):
         """Derive every frame quantity by jax AD of smooth ephemeris
         interpolants (`frame_kinematics.rotating_frame_samples`) — the
-        TPU-native replacement for the reference's finite-difference
+        JAX replacement for the reference's finite-difference
         table pipeline (`EPPRFrame.py` CalcFrameData) — then sample the
         results onto the interp tables the expression layer consumes."""
         from .frame_kinematics import (DifferentiableEphemeris,

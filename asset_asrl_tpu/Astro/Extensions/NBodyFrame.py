@@ -6,7 +6,7 @@ centered on P1 (whose own inertial acceleration is applied as a frame
 correction, CalcFrameData); additional bodies contribute third-body gravity
 through interp-table position functions.
 
-TPU-environment design note: the reference pulls every ephemeris from SPICE
+Design note: the reference pulls every ephemeris from SPICE
 (spiceypy).  Here the ephemeris source is pluggable:
 * a SPICE kernel set when spiceypy is importable (via `..SpiceRead`),
 * precomputed trajectories passed directly (`P1Data=...`,

@@ -3,7 +3,7 @@
 Reference: `src/Astro/KeplerPropagator.h` (universal-variable propagator as a
 differentiable function), `src/Astro/KeplerUtils.{h,cpp}` (element
 conversions), `src/Astro/LambertSolvers.{h,cpp}` (Izzo single/multi-rev,
-batch-threaded).  TPU design: the propagator's universal-anomaly Newton
+batch-threaded).  JAX design: the propagator's universal-anomaly Newton
 iteration runs in a `lax.while_loop`; derivatives flow through forward-mode
 AD; batch propagation/Lambert are `jax.vmap`s.
 """
@@ -215,7 +215,7 @@ def lambert_izzo(r1, r2, tof, mu=1.0, longway=False, Nrevs=0,
 def lambert_izzo_batch(r1s, r2s, tofs, mu=1.0, longway=False, Nrevs=0,
                        rightbranch=False):
     """Vmapped batch Lambert: one fixed-iteration solve per lane on the
-    accelerator (the TPU analog of the reference's batch-threaded
+    accelerator (the analog of the reference's batch-threaded
     overloads, `LambertSolvers.cpp:21`).  Returns (V1 (n,3), V2 (n,3))."""
     f = jax.jit(jax.vmap(
         lambda a, b, t: _lambert_core(a, b, t, mu, longway, Nrevs,

@@ -1,6 +1,6 @@
 """Adaptive Runge-Kutta integrators (RK4 / DOPRI54 / DOPRI87).
 
-TPU-native replacement for `src/Integrators/` (RKCoeffs.h butcher tableaus,
+JAX replacement for `src/Integrators/` (RKCoeffs.h butcher tableaus,
 RKSteppers.h differentiable steppers, Integrator.h adaptive loop with events,
 dense output, STM, batch-parallel):
 

@@ -240,7 +240,7 @@ def update_mesh(phase, errs):
     # structure key then matches and the whole jit/KKT plan is reused
     # (transcribe() refreshes runtime consts only).  Up to ~30% extra
     # segments per iteration trades for zero XLA recompiles, which
-    # dominate adaptive-mesh wall time on TPU.
+    # dominate adaptive-mesh wall time.
     if getattr(phase, "MeshBucketing", True):
         b = max(4, int(phase.MinSegments))
         while b < n_new:

@@ -1,6 +1,6 @@
 """Phase: collocation transcription of one ODE over a mesh + user API.
 
-TPU-native redesign of `src/OptimalControl/ODEPhase.h` + `ODEPhaseBase.{h,cpp}`
+JAX redesign of `src/OptimalControl/ODEPhase.h` + `ODEPhaseBase.{h,cpp}`
 + `PhaseIndexer.{h,cpp}`:
 
 * Variable layout per phase: [ (x_i, u_i) for node i ] ++ [t0, tf] ++
@@ -9,7 +9,7 @@ TPU-native redesign of `src/OptimalControl/ODEPhase.h` + `ODEPhaseBase.{h,cpp}`
   `MeshSpacingConstraints.h`), node times here are affine in the two border
   variables t0/tf via the fixed normalized mesh tau_i — fewer variables, no
   spacing rows, and the KKT stays block-banded in node index with a tiny
-  dense border (the sharding seam for the TPU block solver).
+  dense border (the sharding seam for the block solver).
 * Every constraint/objective becomes an IndexedFunction family: one traced
   jnp closure + a (napps, nin) gather matrix + per-application constants
   (mesh fractions), evaluated with a single vmap per kind.
@@ -1114,6 +1114,8 @@ class Phase:
         self._scale_vec = U
         V0 = self.makeSolverInput(raw=True)
 
+        # set-up probes: small jits whose results the host reads at once,
+        # compiled and run on the host CPU backend
         try:
             cpu = jax.devices("cpu")[0]
             ctx = jax.default_device(cpu)
@@ -1233,7 +1235,8 @@ class Phase:
         'block' (default): single-device block-tridiagonal BCR.
         'sharded': ONE problem's KKT distributed segment-axis over a
             device mesh (`Solvers.kkt_sharded.ShardedBlockKKT`) — local
-            BCR per shard, border Schur complements exchanged over ICI.
+            BCR per shard, border Schur complements exchanged between
+            devices.
             `mesh`: a 1-axis `jax.sharding.Mesh` (defaults to all visible
             devices on axis `axis`).  Mesh refinement / setTraj re-runs
             transcription, which re-pads and re-shards the new chain

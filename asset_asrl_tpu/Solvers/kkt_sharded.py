@@ -7,15 +7,15 @@ FIRST macro as the shard's boundary representative, eliminates its L-1
 interior macros with a purely local BCR (the representative, the next
 shard's representative, and the global border form an *extended border* of
 that local factorization), and exchanges only the (b + 2W)-sized border
-Schur complements via `all_gather` over ICI.  The reduced system — a
+Schur complements via `all_gather`.  The reduced system — a
 block-tridiagonal chain over the D representatives plus the global border
 — is factorized redundantly on every device (O(D) serial work per
-device: fine at single-host D<=8; at pod scale use the 2-axis
+device: fine at single-host D<=8; across many hosts use the 2-axis
 hierarchical mesh, `sharded_factor_hier`, whose cross-host reduced
 chain is O(#hosts)).
 
-This is the TPU-native replacement for the reference's shared-memory
-Pardiso factorization (`src/Solvers/PardisoInterface.h`) at pod scale:
+This is the multi-device replacement for the reference's shared-memory
+Pardiso factorization (`src/Solvers/PardisoInterface.h`):
 SURVEY.md section 2.9 P6 / section 5.8 — phases/segments are index-disjoint
 blocks whose only coupling is through boundary rows, so the chain is the
 natural sharding seam (`OptimalControlProblem.cpp:115-388`).
@@ -200,11 +200,11 @@ def sharded_factor_hier(diag, lower, B, C, mesh, axes=("host", "chip"),
 
     Same elimination as `sharded_factor` with one more level: each CHIP
     eliminates its interior macros locally; each HOST then gathers its
-    chips' (b+2W)-sized border Schur complements over the intra-host axis
-    (ICI traffic), eliminates the chip representatives down to ONE host
-    representative, and only the host-level Schur complements cross the
-    host boundary (DCN traffic, `all_gather` over axes[0]).  The final
-    H-host chain is factorized redundantly.  This keeps DCN volume at
+    chips' (b+2W)-sized border Schur complements over the intra-host axis,
+    eliminates the chip representatives down to ONE host representative,
+    and only the host-level Schur complements cross the host boundary
+    (`all_gather` over axes[0]).  The final H-host chain is factorized
+    redundantly.  This keeps cross-host volume at
     H x (b+2W)^2 instead of (H*Dc) x (b+2W)^2 and the redundant reduced
     factorization at O(H) instead of O(H*Dc) (BASELINE.md:33 N>=2 hosts;
     SURVEY.md section 5.8).
@@ -247,7 +247,7 @@ def sharded_factor_hier(diag, lower, B, C, mesh, axes=("host", "chip"),
                                         invert_border=False)
         Cs = fac_loc.pop("C_schur")
 
-        # ---- level 1: host-local reduction over chip reps (ICI) ----
+        # ---- level 1: host-local reduction over chip reps ----
         Csc = jax.lax.all_gather(Cs, cax)               # (Dc, bext, bext)
         # interior chip-reps j=1..Dc-1 of this host
         shift_c = jnp.concatenate([Csc[:-1, b + W:, b + W:],
@@ -279,7 +279,7 @@ def sharded_factor_hier(diag, lower, B, C, mesh, axes=("host", "chip"),
                                           invert_border=False)
         Cs2 = fac_host.pop("C_schur")
 
-        # ---- level 2: cross-host reduction (DCN) ----
+        # ---- level 2: cross-host reduction ----
         Csh = jax.lax.all_gather(Cs2, hax)              # (H, bext, bext)
         shift_h = jnp.concatenate(
             [jnp.zeros((1, W, W + b), dt),
@@ -311,7 +311,7 @@ def sharded_factor_hier(diag, lower, B, C, mesh, axes=("host", "chip"),
 def sharded_solve_hier(fac, rhs_blocks, rhs_border, mesh,
                        axes=("host", "chip")):
     """Solve with a sharded_factor_hier result (two gather levels:
-    ICI within host, DCN across hosts)."""
+    within a host, then across hosts)."""
     hax, cax = axes
     W = fac["loc"]["D0inv"].shape[-1]
     b = fac["red"]["Cinv"].shape[-1]
@@ -331,7 +331,7 @@ def sharded_solve_hier(fac, rhs_blocks, rhs_border, mesh,
         rb_ext0 = jnp.concatenate(
             [jnp.zeros((b,), dt), r_l[0].astype(dt), jnp.zeros((W,), dt)])
         stack, r_root, rb_red = bcr_reduce_rhs(fac_loc, r_int, rb_ext0)
-        # level 1 reduce (ICI)
+        # level 1 reduce (within the host)
         allc = jax.lax.all_gather(rb_red, cax)          # (Dc, bext)
         r_int_h = allc[1:, b:b + W] + allc[:-1, b + W:b + 2 * W]
         # last chip's next-rep rhs part belongs to the NEXT host's
@@ -341,7 +341,7 @@ def sharded_solve_hier(fac, rhs_blocks, rhs_border, mesh,
              allc[Dc - 1, b + W:b + 2 * W]])
         stack_h, r_root_h, rb_red_h = bcr_reduce_rhs(fac_host, r_int_h,
                                                      rb_ext_h)
-        # level 2 (DCN)
+        # level 2 (across hosts)
         allh = jax.lax.all_gather(rb_red_h, hax)        # (H, bext)
         shift = jnp.concatenate(
             [jnp.zeros((1, W), dt), allh[:-1, b + W:b + 2 * W]], axis=0)
@@ -382,16 +382,16 @@ class ShardedBlockKKT:
     """Drop-in BlockKKT variant whose factorization/solve run segment-axis
     sharded over a device mesh (SURVEY.md section 2.9 P6: ONE problem's KKT
     distributed over chips, boundary Schur complements exchanged via
-    all_gather over ICI).
+    all_gather).
 
     Wraps an existing BlockKKT (reusing its probing/assembly plan) and
     overrides only the factor/solve kernels, so the fused PSIOPT loop and
     the host loop work unchanged."""
 
     def __init__(self, base, mesh, axis="seg"):
-        """mesh: 1-axis (single-host ICI substructuring) or 2-axis
-        ("host", "chip")-style (hierarchical: ICI reduction per host, DCN
-        exchange across hosts — see sharded_factor_hier).  `axis` names
+        """mesh: 1-axis (flat substructuring) or 2-axis ("host",
+        "chip")-style (hierarchical: reduction per host, exchange across
+        hosts — see sharded_factor_hier).  `axis` names
         the chain axis for 1-axis meshes; for 2-axis meshes the mesh's
         own axis order (outer=host, inner=chip) is used."""
         import jax
@@ -474,8 +474,8 @@ class ShardedBlockKKT:
         from .kkt_block import _refine_steps
         if _refine_steps() > 0:
             # exact regularized blocks for Richardson refinement of the
-            # sharded solve (same dd-f64 recursion-error recovery as the
-            # single-chip path, kkt_block.bcr_richardson_solve)
+            # sharded solve (ASSET_REFINE_STEPS, as on the single-chip
+            # path, kkt_block.bcr_richardson_solve)
             fac["blocks64"] = (diag, lower, B, C)
         # padded identity blocks contribute +1 pivots only
         return fac, neigs

@@ -34,38 +34,31 @@ class Timer:
 
 class Profiler:
     """JAX profiler integration (SURVEY section 5.1): traces device
-    execution for TensorBoard / xprof.
+    execution for TensorBoard / xprof, and records the wall time of the
+    traced block in `.elapsed`.
 
         with ast.Utils.Profiler("/tmp/trace"):
             phase.optimize()
 
-    On remote-runtime TPU platforms where the profiler service is
-    unavailable the context degrades to a wall-clock Timer (read
-    `.elapsed` after exit) instead of failing the solve.
+    A failing start_trace/stop_trace raises.
     """
 
-    def __init__(self, logdir="/tmp/asset_trace"):
+    def __init__(self, logdir=None):
+        if logdir is None:
+            import tempfile
+            logdir = os.path.join(tempfile.gettempdir(), "asset_trace")
         self.logdir = str(logdir)
         self.elapsed = None
-        self._active = False
         self._t0 = None
 
     def __enter__(self):
+        import jax
+        jax.profiler.start_trace(self.logdir)
         self._t0 = time.perf_counter()
-        try:
-            import jax
-            jax.profiler.start_trace(self.logdir)
-            self._active = True
-        except Exception:
-            self._active = False
         return self
 
     def __exit__(self, *exc):
-        if self._active:
-            try:
-                import jax
-                jax.profiler.stop_trace()
-            except Exception:
-                pass
+        import jax
         self.elapsed = time.perf_counter() - self._t0
+        jax.profiler.stop_trace()
         return False

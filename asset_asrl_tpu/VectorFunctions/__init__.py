@@ -1,6 +1,6 @@
 """asset_asrl_tpu.VectorFunctions — the `vf` namespace.
 
-TPU-native reimplementation of the reference `asset.VectorFunctions` module
+JAX reimplementation of the reference `asset.VectorFunctions` module
 (`src/VectorFunctions/ASSET_VectorFunctions.cpp` bindings).
 """
 

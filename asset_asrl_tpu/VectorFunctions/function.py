@@ -1,6 +1,6 @@
 """Core VectorFunction layer: composable differentiable functions over jnp.
 
-TPU-native replacement for the reference's expression-template AD engine
+JAX replacement for the reference's expression-template AD engine
 (`src/VectorFunctions/ComputableBase.h`, `DenseFunctionBase.h`,
 `CommonFunctions/*`): instead of CRTP nodes with hand-written first/second
 order chain rules, a VectorFunction here is a traceable closure
@@ -378,10 +378,9 @@ class VectorFunction:
         if float(p) == int(p):
             # integral exponents lower to lax.integer_pow, whose derivative
             # rules are pure polynomials.  General pow differentiates
-            # through x**(p-k) terms that TPU f64 emulation evaluates as
-            # exp((p-k)·log x) — NaN second derivatives at x == 0 (CPU
-            # defines pow(0,0)=1, so the bug is TPU-only and bites any
-            # initial guess with exact zeros, e.g. zero controls).
+            # through x**(p-k) terms that a backend may evaluate as
+            # exp((p-k)·log x) — NaN second derivatives at x == 0, which
+            # bites any initial guess with exact zeros (e.g. zero controls).
             ip = int(p)
             return VectorFunction(lambda x: jnp.atleast_1d(f(x)) ** ip,
                                   self._ir, self._orr, name="pow")

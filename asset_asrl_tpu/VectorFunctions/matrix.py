@@ -143,8 +143,8 @@ class MatrixFunction(VectorFunction):
             raise ValueError("inverse requires a square matrix")
         fm = self._fm
         n = self.rows
-        # closed-form small inverses (XLA:TPU LuDecomposition is f32-only,
-        # and 2x2/3x3 cofactor inverses fuse better anyway)
+        # closed-form small inverses (2x2/3x3 cofactor inverses fuse into
+        # the surrounding elementwise code; no LU custom call)
         if n == 1:
             inv = lambda M: 1.0 / M
         elif n == 2:

@@ -5,7 +5,7 @@ Reference: `src/VectorFunctions/CommonFunctions/RootFinder.h:29-50`
 iteration variable (its incoming value is the initial guess) and whose
 remaining inputs are parameters, the node outputs the root x* with
 FX(x*, params) = 0, differentiated w.r.t. the parameters by the implicit
-function theorem.  TPU design: `lax.custom_root` supplies the implicit
+function theorem.  JAX design: `lax.custom_root` supplies the implicit
 derivative; the solve itself is a damped Newton `lax.while_loop`.
 """
 

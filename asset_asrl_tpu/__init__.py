@@ -1,4 +1,4 @@
-"""asset_asrl_tpu: a TPU-native (JAX/XLA/Pallas) trajectory-optimization
+"""asset_asrl_tpu: a JAX/XLA trajectory-optimization
 framework with the capabilities of AlabamaASRL/asset_asrl.
 
 Drop-in namespace layout mirrors the reference python package
@@ -24,6 +24,6 @@ def SoftwareInfo():
     """Startup banner (reference `src/main.cpp:18-121` SoftwareInfo)."""
     import jax
     devs = ", ".join(str(d) for d in jax.devices())
-    print(f"asset_asrl_tpu {__version__} — TPU-native ASSET "
+    print(f"asset_asrl_tpu {__version__} — ASSET on JAX "
           f"(JAX {jax.__version__}; devices: {devs})")
 

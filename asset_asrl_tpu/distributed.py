@@ -1,19 +1,22 @@
-"""Multi-host (multi-process) execution support.
+"""Multi-process execution support.
 
 The reference is a single-process shared-memory library (MKL Pardiso
 threads, `src/Solvers/PardisoInterface.h`); its multi-machine story is
-"run independent problems per machine" (Jet).  The TPU-native framework
-instead distributes ONE problem across hosts: `jax.distributed` makes
-every process see the global device set, a ("host", "chip") mesh maps
-the segment chain over it, and `ShardedBlockKKT` runs hierarchical
-substructuring — per-chip local elimination, per-host ICI reduction,
-host-boundary Schur exchange over DCN (`Solvers/kkt_sharded.py`,
-SURVEY.md section 5.8, BASELINE.md:33 N>=2 hosts).
+"run independent problems per machine" (Jet).  Here ONE problem can be
+distributed over every device of several processes: `jax.distributed`
+makes every process see the global device set, a ("host", "chip") mesh
+maps the segment chain over it, and `ShardedBlockKKT` runs hierarchical
+substructuring — per-device local elimination, a per-process reduction,
+and a Schur exchange across processes (`Solvers/kkt_sharded.py`,
+SURVEY.md section 5.8, BASELINE.md:33 N>=2 hosts).  One process that
+drives all the devices of one machine needs none of this: a 1-axis
+`chain_mesh()` over its local devices is enough.
 
-Usage on each host of a TPU pod slice (see docs/tutorials/MultiHost.md):
+Usage in each process (see docs/tutorials/MultiHost.md):
 
     import asset_asrl_tpu as ast
-    ast.distributed.initialize()            # env-driven on TPU pods
+    ast.distributed.initialize("10.0.0.1:8476", num_processes=2,
+                               process_id=rank)
     mesh = ast.distributed.host_chip_mesh()
     phase.setKKTBackend("sharded", mesh=mesh)
     phase.optimize()                        # identical on every process
@@ -32,10 +35,10 @@ def initialize(coordinator_address=None, num_processes=None,
                process_id=None, local_device_ids=None):
     """Initialize multi-process JAX (idempotent).
 
-    On Cloud TPU pods every argument is auto-detected from the
-    environment; on CPU/GPU clusters pass the coordinator explicitly,
-    e.g. initialize("10.0.0.1:8476", num_processes=4, process_id=rank).
-    Call before any other JAX API touches the backend.
+    Pass the coordinator explicitly, e.g.
+    initialize("10.0.0.1:8476", num_processes=4, process_id=rank); JAX
+    auto-detects these only under a cluster manager it knows.  Call
+    before any other JAX API touches the backend.
     """
     global _initialized
     if _initialized:
@@ -61,8 +64,8 @@ def is_initialized():
 def host_chip_mesh(host_axis="host", chip_axis="chip"):
     """Global ("host", "chip") mesh over every device of every process.
 
-    Rows are processes (DCN boundary), columns the process-local devices
-    (ICI) — the shape `ShardedBlockKKT` uses for hierarchical
+    Rows are processes, columns the process-local devices — the shape
+    `ShardedBlockKKT` uses for hierarchical
     substructuring.  Works single-process too (1 x ndevices).
     """
     import jax
@@ -75,8 +78,8 @@ def host_chip_mesh(host_axis="host", chip_axis="chip"):
 
 
 def chain_mesh(axis="seg"):
-    """Flat 1-axis mesh over every global device (single-host ICI
-    substructuring; prefer host_chip_mesh across hosts)."""
+    """Flat 1-axis mesh over every global device (flat substructuring;
+    prefer host_chip_mesh across processes)."""
     import jax
     from jax.sharding import Mesh
     return Mesh(np.array(jax.devices()), (axis,))

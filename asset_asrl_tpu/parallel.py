@@ -1,7 +1,7 @@
 """Scenario-batch and device-mesh execution (the reference Jet analog).
 
 Reference: `src/Solvers/Jet.h` runs N whole optimization problems on a
-thread pool (one MKL thread each).  TPU-native equivalent: the entire IPM
+thread pool (one MKL thread each).  JAX equivalent: the entire IPM
 iteration of a transcribed phase is one jitted function of the solver state,
 so a *batch* of scenarios is `jax.vmap` of that function, and the batch axis
 is sharded over a `jax.sharding.Mesh` — scenario data-parallelism over
@@ -102,7 +102,8 @@ def make_iteration_step(phase, delta=1.0e-5, gammaE=1.0e-10,
 def init_state(phase, mu0=1.0e-3, boundpush=1.0e-3):
     """Solver state from the phase's current trajectory (init_impl analog).
 
-    Runs on the host CPU backend (setup, not solver math); mu is a strong
+    Evaluates the constraints on the host CPU backend (set-up, not solver
+    math: one small jit whose result the host reads at once); mu is a strong
     f64 scalar so the state aval exactly matches the iteration output (no
     retrace on the second step)."""
     if phase._need_transcribe or phase._nlp is None:
@@ -114,7 +115,8 @@ def init_state(phase, mu0=1.0e-3, boundpush=1.0e-3):
     except RuntimeError:
         cpu = None
     import contextlib
-    ctx = jax.default_device(cpu) if cpu is not None         else contextlib.nullcontext()
+    ctx = jax.default_device(cpu) if cpu is not None \
+        else contextlib.nullcontext()
     with ctx:
         _, cE, cI = nlp.eval_obj_cons(jnp.asarray(x0))
     cI = np.asarray(cI)
@@ -127,7 +129,7 @@ def init_state(phase, mu0=1.0e-3, boundpush=1.0e-3):
 
 def make_batched_step(phase, mesh=None, axis="scenario"):
     """Vmapped iteration step over a leading scenario axis, optionally
-    sharded over a device mesh (the Jet analog at pod scale)."""
+    sharded over a device mesh (the Jet analog across devices)."""
     step = make_iteration_step(phase)
     vstep = jax.vmap(step)
     if mesh is None:
@@ -169,7 +171,8 @@ def solve_ensemble(phase, perturb_states=None, mesh=None, mode="OPT",
         x0s = np.stack([np.asarray(x) for x in x0s])
     B = x0s.shape[0]
 
-    # per-scenario slack/multiplier init (init_impl), batched on host CPU
+    # per-scenario slack/multiplier init (init_impl), batched on the host
+    # CPU: set-up whose results the host reads at once
     try:
         cpu = jax.devices("cpu")[0]
     except RuntimeError:

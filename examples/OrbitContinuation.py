@@ -1,7 +1,7 @@
 """CR3BP periodic-orbit continuation: L1 Lyapunov and Northern L1 Halo
 families (reference `examples/OrbitContinuation.py`).
 
-Re-designed for the TPU runtime: one phase object is reused across the whole
+Re-designed for the JAX runtime: one phase object is reused across the whole
 continuation sweep (`setTraj` + warm-started `solve` per family member), so
 the transcription/factorization graph compiles once instead of once per
 orbit."""

@@ -116,83 +116,3 @@ def test_nonbanded_rows_use_border_not_dense(capsys):
     tr = np.asarray(phase.returnTraj())
     d2 = (tr[-1, 0] - tr[0, 0]) ** 2 + (tr[-1, 1] - tr[0, 1]) ** 2
     assert abs(d2 - 100.0) < 1e-6
-
-
-def test_zero_target_solve():
-    """Zero-target refinement (kkt_block._zt_solve): factoring at the
-    deltaH probe floor but refining the solve against the UNPERTURBED
-    system must produce a step whose K0 residual is at machine level,
-    while the plain delta-target solve carries the delta*|dx| bias this
-    machinery exists to remove; with zt disarmed it must equal the plain
-    solve bit-for-bit (modulo the shared refinement family)."""
-    import os
-    import importlib.util
-    import jax
-    import jax.numpy as jnp
-    from asset_asrl_tpu.Solvers.kkt_block import _block_matvec
-
-    os.environ["ASSET_REFINE_STEPS"] = "1"   # store blocks64 on CPU too
-    os.environ["ASSET_ZT_STEPS"] = "4"
-    try:
-        spec = importlib.util.spec_from_file_location(
-            "bench_mod_zt", os.path.join(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))), "bench.py"))
-        bench = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(bench)
-        phase = bench.build_phase(16)
-        phase.optimizer.set_PrintLevel(2)
-        assert phase.optimize() == 0
-        opt = phase.optimizer
-        kkt = opt.kkt
-        nlp = kkt.nlp
-        x = jnp.asarray(phase.makeSolverInput())
-        lamE = jnp.asarray(opt.LastEqLmults)
-        lamI = jnp.asarray(opt.LastIqLmults)
-        s = jnp.maximum(jnp.asarray(opt.LastSlacks), 1e-12)
-        consts = nlp.consts_dev()
-        _, _, _, _, fam = jax.jit(kkt._ad_impl)(
-            x, lamE, lamI, jnp.asarray(1.0), consts)
-        Mu = 1e-10
-        Sig = jnp.where(lamI / s < 0.0, Mu / (s * s), lamI / s)
-        st = Sig / (1.0 + opt.gammaI * Sig)
-        blocks = jax.jit(kkt._blocks_impl)(fam, st)
-        facD, _ = jax.jit(kkt._factor_blocks_impl)(
-            blocks, jnp.asarray(1e-5), jnp.asarray(1e-10))
-        fac0, _ = jax.jit(kkt._factor_blocks_impl)(
-            blocks, jnp.asarray(0.0), jnp.asarray(1e-10))
-        rng = np.random.default_rng(0)
-        rx = jnp.asarray(rng.normal(size=nlp.numPrimal))
-        rE = jnp.asarray(rng.normal(size=nlp.numEq))
-        dxz, dlz = jax.jit(kkt._solve_impl)(
-            dict(facD, zero_target=jnp.asarray(True)), rx, rE)
-        dxd, dld = jax.jit(kkt._solve_impl)(
-            dict(facD, zero_target=jnp.asarray(False)), rx, rE)
-        dxp, dlp = jax.jit(kkt._solve_impl)(facD, rx, rE)
-
-        bs = kkt.bs
-        mv0 = _block_matvec(fac0["blocks64"])   # exact delta=0 blocks
-
-        def k0_resid(dx, dl):
-            full = jnp.zeros((bs.K * bs.W + bs.b,))
-            full = full.at[kkt._perm].set(jnp.concatenate([dx, dl]))
-            y = full[:bs.K * bs.W].reshape(bs.K, bs.W)
-            z = full[bs.K * bs.W:]
-            Ay, Az = mv0(y, z)
-            rfull = jnp.zeros((bs.K * bs.W + bs.b,))
-            rfull = rfull.at[kkt._perm].set(jnp.concatenate([rx, rE]))
-            rb = rfull[:bs.K * bs.W].reshape(bs.K, bs.W)
-            rz = rfull[bs.K * bs.W:]
-            return float(jnp.sqrt(jnp.sum((Ay - rb) ** 2)
-                                  + jnp.sum((Az - rz) ** 2)))
-
-        rnorm = float(jnp.sqrt(rx @ rx + rE @ rE))
-        # armed: the step solves the UNPERTURBED system to machine level
-        assert k0_resid(dxz, dlz) < 1e-9 * rnorm, k0_resid(dxz, dlz)
-        # the plain delta-target solve carries the delta bias
-        assert k0_resid(dxp, dlp) > 1e-5 * rnorm
-        # disarmed == plain
-        ref = float(jnp.linalg.norm(dxp))
-        assert float(jnp.linalg.norm(dxd - dxp)) / ref < 1e-10
-    finally:
-        os.environ.pop("ASSET_REFINE_STEPS", None)
-        os.environ.pop("ASSET_ZT_STEPS", None)

@@ -91,7 +91,7 @@ def test_fused_ensemble_matches_optimize():
 
 
 def test_sharded_mesh_determinism():
-    """8-device sharded ensemble equals unsharded (the TPU substitute for
+    """8-device sharded ensemble equals unsharded (the multi-device substitute for
     the reference's threaded-scatter determinism test NLPTest)."""
     devs = jax.devices()
     if len(devs) < 8:
@@ -124,7 +124,7 @@ def test_sharded_mesh_determinism():
 @pytest.mark.slow
 def test_multispacecraft_ensemble_64():
     """64-scenario FULL-solve ensemble sharded over the virtual mesh
-    (SURVEY 2.9 P4 at the VERDICT-requested scale)."""
+    (SURVEY 2.9 P4 at 64 scenarios)."""
     import sys
     import os
     sys.path.insert(0, os.path.join(os.path.dirname(

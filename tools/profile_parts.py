@@ -1,10 +1,11 @@
-"""Fine-grained TPU timing of solver sub-components at bench scale.
+"""Fine-grained timing of solver sub-components at bench scale.
 
 Times each piece of the per-iteration pipeline separately so
-optimization targets facts: Ruiz, GJ inverse (dd-f64 XLA vs f32
-Pallas), BCR level products, jac vs hess family AD (f64 vs f32),
+optimization targets facts: Ruiz, GJ inverse (f64 vs f32), BCR level
+products, jac vs hess family AD (f64 vs f32),
 assembly sub-parts, value-only pass (line search), solve sweeps.
 """
+import os
 import sys
 import time
 import numpy as np
@@ -12,9 +13,10 @@ import jax
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 import importlib.util
-spec = importlib.util.spec_from_file_location("bench", "/root/repo/bench.py")
+spec = importlib.util.spec_from_file_location("bench", os.path.join(ROOT, "bench.py"))
 bench = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(bench)
 
@@ -183,8 +185,6 @@ timed("bcr_factor_f64_noruiz",
       dreg, lower, B, Creg)
 timed("gj_inv_f64_xla", jax.jit(KB._inv_gj_pivots), dreg)
 d32 = dreg.astype(jnp.float32)
-from asset_asrl_tpu.Solvers.pallas_kernels import batched_gj_inverse
-timed("gj_inv_f32_pallas", jax.jit(batched_gj_inverse), d32)
 timed("gj_inv_f32_xla",
       jax.jit(lambda D: KB._inv_gj_pivots(D)), d32)
 

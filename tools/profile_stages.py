@@ -7,11 +7,12 @@ if os.environ.get("PLAT"):
     jax.config.update("jax_platforms", os.environ["PLAT"])
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 nsegs = int(sys.argv[1]) if len(sys.argv) > 1 else 500
 sys.argv = [sys.argv[0]]
 import importlib.util
-spec = importlib.util.spec_from_file_location("bench", "/root/repo/bench.py")
+spec = importlib.util.spec_from_file_location("bench", os.path.join(ROOT, "bench.py"))
 bench = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(bench)
 

@@ -5,11 +5,12 @@ if os.environ.get("PLAT"):
     os.environ["JAX_PLATFORMS"] = os.environ["PLAT"]
 import cProfile
 import pstats
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 import jax
 jax.config.update("jax_enable_x64", True)
 import importlib.util
-spec = importlib.util.spec_from_file_location("bench", "/root/repo/bench.py")
+spec = importlib.util.spec_from_file_location("bench", os.path.join(ROOT, "bench.py"))
 bench = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(bench)
 nsegs = int(sys.argv[1]) if len(sys.argv) > 1 else 5000
